@@ -1,4 +1,4 @@
-"""Collective-traffic accounting from compiled HLO (VERDICT r2 item 7).
+"""Collective-traffic accounting from compiled HLO.
 
 Compiles the jitted steps over an 8-virtual-device CPU mesh at a scaled
 Terabyte-like geometry and reports the per-invocation collective bytes of
@@ -11,7 +11,7 @@ each variant pair the config exposes:
 Byte counts come from the compiled HLO text (result shapes of all-reduce /
 all-gather / reduce-scatter / collective-permute / all-to-all ops), i.e.
 what XLA actually materializes for the collective — shard-local logical
-bytes; ICI traffic is a ring-algorithm multiple of this, identical across
+bytes; link traffic is a ring-algorithm multiple of this, identical across
 compared variants. Prints one JSON line per measurement.
 """
 

@@ -1,18 +1,18 @@
-"""Convergence under cache pressure at BENCH GEOMETRY, on the real chip
-(round-3 verdict item 3): the toy pressure study
+"""Convergence under cache pressure at BENCH GEOMETRY, on the GPU: the toy
+pressure study
 (tests/test_convergence_pressure.py, 3 tables x 2000 ids, dim 8, CPU mesh)
 validates the paper's "caching doesn't hurt" claim only at toy dynamics;
 this script runs the same latent-embedding-target design at the paper-repro
 geometry — 26 tables x 250k ids, dim 128, batch 4096, bf16 compute, prime
 sets, multi-window staleness — with a FULL-TABLE HBM oracle (26x250k x128
-f32 ~ 3.3 GB, fits one v5e) against cached runs at ~30% and ~10% effective
+f32 ~ 3.3 GB, fits in one card's memory) against cached runs at ~30% and ~10% effective
 capacity, evictions + writebacks live.
 
 Reference anchor for the writeback semantics under stress:
 /root/reference/cache_manager.py:48-64 (eventually-consistent eviction
 writeback into the shared master tables).
 
-Emits PRESSURE_r04.json with the AUC envelope (`pressure_auc_gap` per
+Prints one JSON line with the AUC envelope (`pressure_auc_gap` per
 capacity point) and asserts the pressure was real (hit rate < 0.99 at 10%,
 rows written back > 0).
 """
@@ -197,17 +197,13 @@ def _run_oracle():
 def main():
     import jax
 
-    if os.environ.get("PRESSURE_CPU"):  # smoke mode: run off-chip
+    from cdlrm_tpu.utils.device import enable_compile_cache, require_gpu
+
+    if os.environ.get("PRESSURE_CPU"):  # smoke mode: run on the CPU
         jax.config.update("jax_platforms", "cpu")
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), ".jax_cache"
-    )
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception as e:
-        log(f"compilation cache not enabled: {e}")
+    else:
+        require_gpu("bench_pressure.py (PRESSURE_CPU=1 for the smoke)")
+    enable_compile_cache()
     log(f"backend={jax.default_backend()}, steps={STEPS}")
 
     # imports AFTER the compilation-cache config (bench.py pattern)
@@ -221,8 +217,7 @@ def main():
     # instead of re-running it. Valid ONLY when the oracle-visible inputs
     # are unchanged (stream/steps/lrs/optimizer/hetero — NOT ways or caps,
     # which the oracle never sees); the artifact rows pin this: the same
-    # loguniform default reproduced auc=0.8915631... bit-identically across
-    # six independent runs (PRESSURE_midscale_cpu.json).
+    # oracle is deterministic given those inputs.
     if os.environ.get("PRESSURE_ORACLE"):
         acc_s, auc_s = os.environ["PRESSURE_ORACLE"].split(",")
         oracle = {"acc": float(acc_s), "auc": float(auc_s), "reused": True}

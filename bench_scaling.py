@@ -5,11 +5,13 @@ efficiency 1 -> 2 hosts") by running the REAL multi-host trainer
 (jax.distributed + row-sharded masters + window exchange,
 parallel/multihost.py) as an H-process cluster.
 
-On TPU pods, run one process per host with --backend tpu (each process picks
-up its local chips). Without hardware this driver spawns local CPU-device
-processes (Gloo collectives) — correctness-faithful, but on a single shared
-machine the processes contend for the same cores/link, so CPU numbers are a
-lower bound on real scaling, not a measurement of it (printed as such).
+With --backend gpu each spawned process owns a disjoint set of cards through
+CUDA_VISIBLE_DEVICES (one process per card group: a JAX process reserves
+most of the memory of every card it can see, so two processes must never
+share one). Without hardware this driver spawns local CPU-device processes
+(Gloo collectives) — correctness-faithful, but on a single shared machine
+the processes contend for the same cores, so CPU numbers are a lower bound
+on real scaling, not a measurement of it (printed as such).
 
 Prints ONE JSON line per topology plus a final efficiency line.
 """
@@ -32,6 +34,9 @@ import jax
 if backend == "cpu":
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", ndev)
+elif jax.default_backend() != "gpu" or jax.local_device_count() != ndev:
+    raise SystemExit(f"want {ndev} local GPUs, JAX found "
+                     f"{jax.local_device_count()} on {jax.default_backend()}")
 if nproc > 1:
     jax.distributed.initialize(f"127.0.0.1:{port}", num_processes=nproc, process_id=pid)
 import numpy as np
@@ -72,6 +77,15 @@ if pid == 0:
 """
 
 
+def card_env(backend, proc, ndev):
+    """Per-process environment: on GPUs, process ``proc`` sees only cards
+    [proc*ndev, (proc+1)*ndev)."""
+    if backend != "gpu":
+        return {}
+    cards = range(proc * ndev, (proc + 1) * ndev)
+    return {"CUDA_VISIBLE_DEVICES": ",".join(str(c) for c in cards)}
+
+
 def run_topology(nproc, ndev, steps, batch_per_dev, backend, port):
     with tempfile.TemporaryDirectory() as td:
         worker = os.path.join(td, "worker.py")
@@ -87,7 +101,8 @@ def run_topology(nproc, ndev, steps, batch_per_dev, backend, port):
                 [sys.executable, worker, str(p), str(nproc), str(ndev),
                  str(port), out, str(steps), str(batch_per_dev), backend],
                 env={**os.environ,
-                     "CDLRM_REPO": os.path.dirname(os.path.abspath(__file__))},
+                     "CDLRM_REPO": os.path.dirname(os.path.abspath(__file__)),
+                     **card_env(backend, p, ndev)},
                 stdout=subprocess.DEVNULL, stderr=errs[p],
             )
             for p in range(nproc)
@@ -116,7 +131,7 @@ def main():
     ap.add_argument("--devices-per-host", type=int, default=2)
     ap.add_argument("--steps", type=int, default=40)
     ap.add_argument("--batch-per-device", type=int, default=128)
-    ap.add_argument("--backend", choices=["cpu", "tpu"], default="cpu")
+    ap.add_argument("--backend", choices=["cpu", "gpu"], default="cpu")
     ap.add_argument("--port", type=int, default=12513)
     args = ap.parse_args()
 
@@ -133,7 +148,7 @@ def main():
         "unit": f"x (same global mesh, 1 vs {args.hosts} processes)",
         "note": ("CPU backend on one machine: processes contend for the same "
                  "cores — lower bound only" if args.backend == "cpu" else
-                 "TPU measurement"),
+                 "GPU measurement"),
     }))
 
 

@@ -1,11 +1,12 @@
-"""On-chip A/B: serial (round-3 style) vs pipelined (round-4) serving path,
-at ~full residency so the mechanism (assembly/forward overlap) is visible
-rather than the tunnel's miss-row H2D (PERF.md round 4: 1.44x measured).
+"""On-chip A/B: serial vs pipelined serving path, at ~full residency so the
+mechanism (assembly/forward overlap) is visible rather than the miss-row
+H2D.
 
 Reference anchor: the strictly-serial rank-0 test loop this improves on,
 /root/reference/main_no_ddp.py:479-494.
 
-SERVINGAB_CPU=1 smokes the harness off-chip on the 8-device CPU mesh."""
+Needs a GPU; SERVINGAB_CPU=1 smokes the harness on the 8-device CPU
+mesh."""
 import json
 import os
 import sys
@@ -22,14 +23,14 @@ def log(m):
 
 def main():
     import jax
+    from cdlrm_tpu.utils.device import enable_compile_cache, require_gpu
+
     if os.environ.get("SERVINGAB_CPU"):
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", 8)
-    cache_dir = os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    else:
+        require_gpu("bench_serving_ab.py (SERVINGAB_CPU=1 for the smoke)")
+    enable_compile_cache()
 
     from cdlrm_tpu.config import Config
     from cdlrm_tpu.data.synthetic import Batch

@@ -1,5 +1,5 @@
-"""cdlrm_tpu: TPU-native DLRM training framework with lookahead embedding
-caching (the cDLRM design, RecSys '21), built on JAX/XLA/Pallas/shard_map.
+"""cdlrm_tpu: JAX/XLA DLRM training framework with lookahead embedding
+caching (the cDLRM design, RecSys '21), built on jit and shard_map.
 
 See DESIGN.md for the architecture and SURVEY.md for the reference analysis.
 """

@@ -130,8 +130,7 @@ class InsertPlanSpec:
 class WindowStats:
     """Per-window probe statistics against the POST-refill occupancy,
     computed by the shadow controller while the window streams (replaces the
-    trainer-side retained-batch / dataset-replay stats pass — VERDICT r2
-    item 4). All counts are per (replica, batch) worst cases over the window;
+    trainer-side retained-batch / dataset-replay stats pass). All counts are per (replica, batch) worst cases over the window;
     totals feed the auto-dedup duplication decision (config.dedup_lookups
     'auto'). Deterministic functions of host-identical state, so every
     multi-host peer derives identical values with zero communication.
@@ -190,8 +189,7 @@ class HostCacheController:
         a redundant O(1) index that turns the per-lookup probe from a
         random-DRAM occupancy walk (~145ns/lookup measured at headline
         geometry) into one vectorized numpy gather (~8ns/lookup) — the probe
-        was the measured host-side wall of the pipelined step (PERF.md round
-        2). Memory: 4 bytes per embedding id (26 MB at the bench geometry,
+        was the measured host-side wall of the pipelined step. Memory: 4 bytes per embedding id (26 MB at the bench geometry,
         ~4 GB at full 40M-id Terabyte — small next to the master tables the
         host already holds). Outputs are bit-identical to the occupancy
         probe (invariant maintained by plan_insert; pinned in
@@ -431,7 +429,7 @@ class HostCacheController:
         table-local first-seen RANK (bit-packed at ``inv_bits``) into a
         per-table unique-slot list. The device then segment-sums duplicate
         gradients into a small [U, D] operand and scatters only U rows —
-        attacking the per-update scatter floor (PERF.md finding 4). Misses
+        attacking the per-update scatter cost. Misses
         keep their distinct aux slots (reference model_no_ddp.py:176-185),
         so dedup never merges miss rows.
 
@@ -521,7 +519,7 @@ class HostCacheController:
         """:meth:`probe_dedup` in the UNPACKED wire format: ``inv_wire`` is
         a raw int32 [T, N] array of table-local first-seen ranks (-1 =
         masked), not a bitstream. For fast host links (PCIe) the device then
-        skips the ~3.7 ms wire decode entirely (PERF.md round 3). The native
+        skips the wire decode entirely. The native
         kernel emits this directly — an LSB-first bitstream at 32 bits IS a
         little-endian int32 array.
 
@@ -530,8 +528,7 @@ class HostCacheController:
         remapped accordingly. Because each table's slots (resident + aux)
         live in its own ascending block and the trash row is the global
         maximum, the concatenated list is then globally sorted — the device
-        scatter/gather can carry ``indices_are_sorted=True`` (PERF.md
-        finding 8 measured sorting worth ~17% on the raw scatter form).
+        scatter/gather can carry ``indices_are_sorted=True``.
         Numerically exact: segments keep their contents, only their bucket
         positions permute."""
         n = ls_i.shape[1]

@@ -1,6 +1,6 @@
 """Host master embedding tables.
 
-TPU-native equivalent of the reference's shared-memory CPU table group
+Equivalent of the reference's shared-memory CPU table group
 (``Embedding_Table_Group`` + ``.share_memory()``,
 /root/reference/model_no_ddp.py:21-98, main_no_ddp.py:621-622): full-size
 per-table float32 arrays in host RAM (optionally mmap-backed for
@@ -224,8 +224,8 @@ class AccumulatorStore:
     DROPPED at eviction / reset at insert (the documented approximation).
     With the master-state flag, evicted ids' accumulators write back here
     (with their rows, same eviction thread) and inserted ids RESUME from
-    here — closing the measured thrash gap (PERF.md round 5: AdaGrad's
-    pressure gap was ~8x SGD's at 3% capacity because state was lost).
+    here — targeting the thrash gap (with state lost at eviction,
+    AdaGrad's AUC gap under cache pressure was several times SGD's).
     No reference counterpart (the reference trains SGD only,
     main_no_ddp.py:374-376). Memory: 4 bytes/row (26 MB at the bench
     geometry; ~2% of the f32 masters at any geometry).

@@ -67,7 +67,10 @@ def build_dataset(cfg: Config):
 
 
 def main(argv=None) -> int:
+    from cdlrm_tpu.utils.device import enable_compile_cache
+
     cfg = config_from_args(argv)
+    enable_compile_cache()
     np.set_printoptions(precision=cfg.print_precision)
 
     if cfg.coordinator_address:

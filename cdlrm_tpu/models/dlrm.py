@@ -12,7 +12,7 @@ Reference behavior (re-designed, not translated):
   (per-class weighted BCE), all computed on the sigmoid *probability* output.
 
 The interaction is expressed as one batched matmul + a static lower-triangle
-gather so XLA maps it onto the MXU with a fused epilogue; no data-dependent
+gather so XLA maps it onto one matmul with a fused epilogue; no data-dependent
 shapes anywhere.
 """
 

@@ -1,6 +1,6 @@
 """Full-table embedding group (the uncached path).
 
-This is the TPU equivalent of the reference's ``Embedding_Table_Group``
+This is the JAX equivalent of the reference's ``Embedding_Table_Group``
 (/root/reference/model_no_ddp.py:21-98): per-table weight matrices initialized
 uniform(-sqrt(1/n), sqrt(1/n)), summed "bag" pooling. It serves three roles:
 

@@ -3,8 +3,8 @@
 Reference: ``DLRM_Net.create_mlp`` (/root/reference/model_no_ddp.py:244-270):
 Linear layers with weights ~ N(0, sqrt(2/(fan_in+fan_out))) and biases
 ~ N(0, sqrt(1/fan_out)); ReLU after every layer except a sigmoid at
-``sigmoid_layer``. We store weights as ``[in, out]`` (x @ W + b) — the natural
-MXU layout — rather than torch's ``[out, in]``.
+``sigmoid_layer``. We store weights as ``[in, out]`` (x @ W + b) — no transpose
+in the matmul — rather than torch's ``[out, in]``.
 """
 
 from __future__ import annotations

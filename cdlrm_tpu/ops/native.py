@@ -179,6 +179,13 @@ def available() -> bool:
     return _load() is not None
 
 
+def library_path() -> Optional[str]:
+    """Path of the loaded native library; None when the numpy fallbacks
+    run (no g++, a failed build, or CDLRM_NO_NATIVE set)."""
+    lib = _load()
+    return None if lib is None else lib._name
+
+
 def set_num_threads(n: int) -> None:
     lib = _load()
     if lib is not None:

@@ -54,7 +54,8 @@ class StepConfig(NamedTuple):
     strict_bias_divergence: bool = False
     # 'strict' | 'delta' | 'off' (bools accepted: True='strict', False='off').
     # strict = faithful rank-0 whole-cache psum broadcast at refill
-    # (reference main_no_ddp.py:317-321, ~2*R*D*4 bytes over ICI per refill);
+    # (reference main_no_ddp.py:317-321, ~2*R*D*4 bytes of collective
+    # traffic per refill);
     # delta = broadcast only the evicted rows and let the (replica-identical)
     # insert buffer carry the new values — trajectory-equal to strict when
     # table_agg_freq divides lookahead (every refill is then immediately
@@ -64,25 +65,22 @@ class StepConfig(NamedTuple):
     compute_dtype: Optional[str] = None  # None/'float32' | 'bfloat16'
     # wire packing: slots arrive as a [T, BYTES] uint8 bitstream of
     # wire_bits-wide table-LOCAL ids (unpacked + offset on device). Cuts
-    # per-step host->device bytes 25-45% — the binding constraint on
-    # low-bandwidth host links; lossless.
+    # per-step host->device bytes 25-45% on low-bandwidth host links;
+    # lossless.
     wire_pack: bool = False
     wire_bits: int = 24  # == WIRE_MAX_BITS (defined below the class)
     # False = single-replica (or agg-free) runs: aggregation is a semantic
     # no-op over one replica, so the train step skips the per-step touched
-    # scatter entirely (scatter updates are the measured device-step floor,
-    # PERF.md finding 4)
+    # scatter entirely
     track_touched: bool = True
     # duplicate-slot coalescing (host_cache.py probe_dedup): lookups arrive
     # as bit-packed first-seen ranks into a per-step unique-slot list; the
     # step gathers unique rows once, expands by rank (fast gather), and the
     # sparse update segment-sums duplicates before scattering only U unique
-    # rows. Measured in situ (PERF.md round 2): XLA:TPU scatter-add costs
-    # ~90ns PER UPDATE ROW regardless of formulation — the take-VJP segment
-    # sum is itself an N-update scatter, so at the bench distribution
-    # (U~0.57N) the device step is a wash (13.5 vs 13.4 ms); the win scales
-    # with duplication (U~0.2N true-Zipf streams: scatter 9.4 -> ~3.4 ms).
-    # Costs ~+30KB per-step H2D (inverse + unique wire vs slot wire).
+    # rows. The take-VJP segment sum is itself an N-update scatter, but
+    # into the small [Ub, D] operand; the cache scatter shrinks from N to
+    # U rows, so the win scales with duplication. Costs ~+30KB per-step
+    # H2D (inverse + unique wire vs slot wire).
     dedup: bool = False
     inv_bits: int = 13  # rank wire width: >= wire_width(lookups_per_table-1)
     uniq_bits: int = 24  # unique-list wire width (== wire_bits)
@@ -90,29 +88,9 @@ class StepConfig(NamedTuple):
     # unique slots in ascending order (one stable argsort — table blocks
     # are disjoint ascending, so global sort == per-table sort) and the
     # unique gather/scatter carry indices_are_sorted=True. Exact (segments
-    # keep their contents; only bucket positions permute). Finding 8
-    # measured host-sorting worth 9.44 -> 7.81 ms on the raw N-row scatter;
-    # this applies it to the coalesced unique form. Unpacked wires only.
+    # keep their contents; only bucket positions permute). Unpacked wires
+    # only.
     sorted_wire: bool = False
-    # Pallas explicit-DMA row gather instead of XLA take for the cache
-    # lookup (ops/lookup.py). Honest chained-D2H timing measured it 1.9x
-    # SLOWER than XLA take at the headline shape (PERF.md round-4 chip
-    # window — the earlier "~15% faster" was a block_until_ready artifact);
-    # retained verified-exact. Requires D % 128 == 0 and per-shard lookup
-    # count divisible by the block size.
-    use_pallas_lookup: bool = False
-    # Pallas explicit-DMA row scatters for the dedup sparse update
-    # (ops/scatter.py): the unique-row grad scatter-add and the aux-staging
-    # row set stream single-row DMAs instead of paying XLA's ~102 ns/row
-    # above-cliff scatter rate (PERF.md finding 11). Requires the dedup
-    # wire (distinct destination rows — the RMW races otherwise) and
-    # D % 128 == 0; per-op bucket shapes fall back to XLA when not a
-    # multiple of the kernel block (static check at trace time).
-    use_pallas_scatter: bool = False
-    # testing only: run the Pallas scatter kernels in interpret mode so the
-    # step-level integration (nvalid prefix arithmetic, call-site
-    # contracts) is exercisable on the CPU mesh (tests/test_trainer_e2e.py)
-    pallas_interpret: bool = False
     # Optimizer (beyond-parity; the reference trains SGD only,
     # main_no_ddp.py:374-376): "sgd" | "adagrad". AdaGrad = torch-semantics
     # element-wise on the dense MLPs + row-wise (torchrec semantics) on the
@@ -139,14 +117,13 @@ class StepConfig(NamedTuple):
     # per-window input hot_slots [H] — the window's hottest resident cache
     # rows, sorted, last position reserved for the trash row. Lookup
     # gradients split on device (searchsorted membership, no extra wire
-    # bytes): HOT lookups coalesce via an MXU one-hot matmul segment-sum
-    # ([N, H] x [N, D] -> [H, D]) and land in ONE H-row scatter; COLD
+    # bytes): HOT lookups coalesce via a segment-sum into an [H, D]
+    # accumulator and land in ONE H-row scatter; COLD
     # lookups compact to a per-window negotiated static bucket
     # (cold_bucket = K) and scatter-add individually. Scatter rows per step
-    # drop from N to H + K — attacking the measured ~90 ns/update-row
-    # XLA:TPU scatter floor AND the duplicate-heavy serialization cliff
-    # (PERF.md findings 8-9): the chain-forming hot rows never hit the
-    # scatter at all. Exact semantics (same sums, different float order).
+    # drop from N to H + K, and the chain-forming hot rows never hit the
+    # cache scatter at all. Exact semantics (same sums, different float
+    # order).
     # The host guarantees K bounds every batch's cold count (shadow window
     # stats); masked/padded lookups resolve to the trash row, which is
     # always in the hot list, so they never consume cold capacity.
@@ -164,16 +141,15 @@ class StepConfig(NamedTuple):
     md_train_mask: Tuple[float, ...] = ()  # [T] 1.0 = trainable projection
     # Block-coalesced sparse update (Config.block_coalesced_update; scan
     # blocks with the unpacked dedup wire + SGD only): instead of one
-    # U-row scatter into the (above-cliff, PERF.md finding 11) cache per
-    # step, per-lookup gradients scatter into a SUB-CLIFF pending buffer
+    # U-row scatter into the full cache per
+    # step, per-lookup gradients scatter into a small pending buffer
     # in block-union row space (one duplicate-row scatter per step — no
     # segment-sum, no per-step cache scatter) and the cache pays ONE
     # U_block-row scatter per scan block. The forward reads the effective
     # weight w_eff = cache[slot] - lr * pending[blk_rank], so semantics
     # are SGD-exact up to float reassociation (c0 - lr*(g1+g2) vs
-    # ((c0 - lr*g1) - lr*g2); single-touch rows are bit-exact). Kernel
-    # A/B: 0.69x/0.84x per-step vs the dedup wire at loguniform/zipf(1.2)
-    # (BLOCK_AB_r04.json). Extra wire: per-step uniq_blk [ub] block ranks
+    # ((c0 - lr*g1) - lr*g2); single-touch rows are bit-exact). Extra
+    # wire: per-step uniq_blk [ub] block ranks
     # (pad/aux/trash -> pending trash row = last) + per-block blk_slots
     # [p_bucket] (the sorted union, trash-padded) + blk_counts [1].
     # Aux-region lanes are EXCLUDED (rank == pending trash => delta
@@ -234,7 +210,7 @@ def pack_slots(
 def _unpack_raw(wire: jax.Array, bits: int, n: int) -> jax.Array:
     """Device side: bitstream [T, BYTES] uint8 -> raw int32 values [T, n].
     Each value reads a 4-byte little-endian window (bits <= 24 + shift <= 7
-    fits 31 bits) — pure vector ops on the VPU. The all-ones value at
+    fits 31 bits) — pure elementwise vector ops. The all-ones value at
     ``bits`` is the caller's sentinel."""
     bitpos = jnp.arange(n, dtype=jnp.int32) * bits
     byte = bitpos >> 3
@@ -283,9 +259,8 @@ def _decode_dedup(
     # first t with cum[t] > j-1
     vals = _unpack_raw(uniq_wire[None, :], uniq_bits, ub)[0]
     pos = jnp.arange(ub, dtype=jnp.int32) - 1
-    # method='sort': the default 'scan' binary search lowers to LOG-many
-    # SERIAL dependent gathers on TPU — measured ~10 ms for 106k keys
-    # (PERF.md round 3 finding 10); the sort-based form is ~1 ms
+    # method='sort': the default 'scan' binary search lowers to log-many
+    # serial dependent gathers; the sort-based form is one sort
     tbl = jnp.clip(
         jnp.searchsorted(cum, pos, side="right", method="sort"),
         0, t_count - 1,
@@ -308,9 +283,8 @@ def _decode_dedup_raw(
     """UNPACKED dedup wire (host_cache.probe_dedup_raw; selected when
     wire_pack is off): ``inv`` is int32 [T, n] table-local ranks (-1 =
     masked), ``uniq_slots`` int32 [Ub] GLOBAL cache rows. No bit unpacking,
-    no table searchsorted — the packed decode costs ~3.7 ms at bench scale
-    on TPU (PERF.md round 3), pure overhead on hosts where wire bytes are
-    free.
+    no table searchsorted — the packed decode is pure overhead on hosts
+    where wire bytes are free.
 
     Default layout: position 0 reserved for the trash rank, trash-row
     padding at the tail. ``sorted_wire`` (StepConfig.sorted_wire): no
@@ -326,13 +300,6 @@ def _decode_dedup_raw(
     else:
         ginv = jnp.where(inv < 0, 0, inv + 1 + base)
     return uniq_slots, ginv.reshape(-1)
-
-
-def _pallas_blk_ok(n: int) -> bool:
-    """ops/scatter.py block contract: row count a multiple of
-    min(1024, n). Pow2 negotiated buckets always satisfy this; odd static
-    shapes fall back to the XLA scatter at trace time."""
-    return n > 0 and n % min(1024, n) == 0
 
 
 def _upcast_x(x, cdtype):
@@ -389,22 +356,21 @@ def _hot_cold_update(
     n = flat_slots.shape[0]
     k = min(cfg.cold_bucket, n)  # pow2 bucket may round past N; cold <= N
     r_cache = cache.shape[0]
-    # method='sort', NOT the default 'scan' (serial dependent gathers on
-    # TPU: 10.2 vs 1.0 ms at bench scale — PERF.md round 3 finding 10)
+    # method='sort', NOT the default 'scan' (log-many serial dependent
+    # gathers)
     pos = jnp.searchsorted(hot_slots, flat_slots, method="sort")
     pos_c = jnp.minimum(pos, h - 1).astype(jnp.int32)
     is_hot = hot_slots[pos_c] == flat_slots
     # trash-targeted lanes (masked/padded lookups; the trash row is always
     # the last hot entry) carry zero gradient and are semantically
     # discardable — REDIRECT them to spread indices instead of letting every
-    # one of them chain onto one row: XLA:TPU serializes same-index
-    # scatter-add chains (PERF.md finding 9; adding -0.0 to a spread row is
-    # the float identity, so spreading is exact)
+    # one of them chain onto one row (same-index scatter-add chains
+    # serialize; adding -0.0 to a spread row is the float identity, so
+    # spreading is exact)
     use_hot = is_hot & (flat_slots != trash_row)
 
-    # hot: segment-sum via an N-row scatter-add into the VMEM-resident
-    # [H, D] accumulator (measured ~8 ns/row vs ~90 ns/row into the
-    # HBM-resident cache), then ONE H-row scatter applies it
+    # hot: segment-sum via an N-row scatter-add into the small [H, D]
+    # accumulator, then ONE H-row scatter applies it to the cache
     spread_h = jnp.arange(n, dtype=jnp.int32) % h
     d_hot = jnp.zeros((h, cache.shape[1]), jnp.float32).at[
         jnp.where(use_hot, pos_c, spread_h)
@@ -412,8 +378,8 @@ def _hot_cold_update(
     cache = cache.at[hot_slots].add(-lr_embeds * d_hot)
 
     # cold: static-size compaction to the host-guaranteed bucket via a
-    # stable argsort (cold lanes first; device argsort is ~0.7 ms at bench
-    # scale and, unlike nonzero, involves no index scatter). Overflow cannot
+    # stable argsort (cold lanes first; unlike nonzero, an argsort
+    # involves no index scatter). Overflow cannot
     # happen by construction (the shadow stats pass counts every batch's
     # exact cold lookups); padding spreads across rows with -0.0.
     cold_idx = jnp.argsort(is_hot)[:k]
@@ -442,8 +408,8 @@ def _hot_cold_update(
 
 def _apply_md_proj(ly, params, cfg):
     """Per-table MD projection after pooling (StepConfig.md_proj): one
-    batched [T, B, D] x [T, D, D] einsum on the MXU (~1.7 GFLOP at bench
-    shape — noise next to the MLPs). Pad rows of each projection are zero,
+    batched [T, B, D] x [T, D, D] einsum (~1.7 GFLOP at bench shape —
+    noise next to the MLPs). Pad rows of each projection are zero,
     so padded input columns contribute nothing and their gradients vanish
     exactly — the zero-padded cache layout is self-consistent under SGD."""
     proj = params["md_proj"]
@@ -532,8 +498,8 @@ def make_cached_train_step(
     (batch-major groups of 6) and stacked inside the program. Per-step
     outputs (loss_sum, correct) come back stacked [block]. Semantically
     step-for-step identical to ``block`` single calls (pinned in
-    tests/test_trainer_e2e.py); the point is dispatch amortization — the
-    classic drive-the-TPU-with-big-programs pattern.
+    tests/test_trainer_e2e.py); the point is dispatch amortization: one
+    large program per block instead of one small program per step.
 
     ``pooled_width`` > 0 enables multi-hot bags: slots come flattened
     [T, B*P], ls_mask [T, B, P] marks real positions, and pooling is a masked
@@ -649,27 +615,10 @@ def make_cached_train_step(
 
         # stage packed miss rows into the aux regions (padding hits the
         # trash row; slots are distinct by construction)
-        if cfg.use_pallas_scatter and _pallas_blk_ok(aux_slots.shape[0]):
-            from cdlrm_tpu.ops.scatter import scatter_set_rows
-
-            # valid slots are a prefix (host packs then pads with trash);
-            # the count is derivable on-device — padding rows are skipped
-            # entirely (no DMA, no same-destination writes)
-            nv_aux = jnp.sum((aux_slots != geo.trash_row).astype(jnp.int32))
-            cache = scatter_set_rows(
-                cache, aux_slots, aux_rows.astype(jnp.float32), nv_aux,
-                interpret=cfg.pallas_interpret,
-            )
-        else:
-            cache = cache.at[aux_slots].set(aux_rows.astype(jnp.float32))
+        cache = cache.at[aux_slots].set(aux_rows.astype(jnp.float32))
 
         flat_slots = slots.reshape(-1)
-        if cfg.use_pallas_lookup:
-            from cdlrm_tpu.ops.lookup import gather_rows
-
-            rows = gather_rows(cache, flat_slots)  # [T*Bl(*P), D]
-        else:
-            rows = jnp.take(cache, flat_slots, axis=0)  # [T*Bl(*P), D]
+        rows = jnp.take(cache, flat_slots, axis=0)  # [T*Bl(*P), D]
 
         loss_fn = make_loss_fn(x, ls_mask, targets, t_count, b_loc, d)
         (loss, p), (dparams, drows) = jax.value_and_grad(
@@ -688,7 +637,7 @@ def make_cached_train_step(
             # sparse optimizer (DESIGN.md D3). Masked multi-hot lanes all
             # carry slot=trash with EXACTLY zero gradient — spread them
             # across rows (-0.0 is the float identity) instead of forming
-            # one same-index scatter chain (PERF.md finding 9).
+            # one same-index scatter chain.
             upd_slots = flat_slots
             if pooled_width > 0:
                 spread = (
@@ -728,22 +677,12 @@ def make_cached_train_step(
         d = cache.shape[-1]
 
         # aux slots are per-table-base + arange concatenated with trash
-        # padding — globally sorted by construction (_pack_aux). Distinct
-        # except the trash padding, which the on-device prefix count skips
-        # entirely (kernel nvalid contract).
-        if cfg.use_pallas_scatter and _pallas_blk_ok(aux_slots.shape[0]):
-            from cdlrm_tpu.ops.scatter import scatter_set_rows
-
-            nv_aux = jnp.sum((aux_slots != geo.trash_row).astype(jnp.int32))
-            cache = scatter_set_rows(
-                cache, aux_slots, aux_rows.astype(jnp.float32), nv_aux,
-                interpret=cfg.pallas_interpret,
-            )
-        else:
-            cache = cache.at[aux_slots].set(
-                aux_rows.astype(jnp.float32),
-                indices_are_sorted=cfg.sorted_wire,
-            )
+        # padding — globally sorted by construction (_pack_aux); distinct
+        # except the trash padding
+        cache = cache.at[aux_slots].set(
+            aux_rows.astype(jnp.float32),
+            indices_are_sorted=cfg.sorted_wire,
+        )
         if cfg.wire_pack:
             uniq_slots, ginv = _decode_dedup(
                 inv_wire, uniq_wire, uniq_counts, geo, cfg.inv_bits,
@@ -779,7 +718,7 @@ def make_cached_train_step(
             def loss_fn(params, rows_u):
                 # the take's transpose segment-sums duplicate-lookup
                 # gradients into [Ub, D] — the small-operand scatter that
-                # replaces the full-width one (PERF.md finding 4 attack)
+                # replaces the full-width one
                 return loss_fn_rows(params, jnp.take(rows_u, ginv, axis=0))
 
             (loss, p), (dparams, d_rows_u) = jax.value_and_grad(
@@ -804,26 +743,9 @@ def make_cached_train_step(
             else:
                 delta_rows = -lr_embeds * d_rows_u
 
-            if cfg.use_pallas_scatter and _pallas_blk_ok(
-                uniq_slots.shape[0]
-            ):
-                from cdlrm_tpu.ops.scatter import scatter_add_rows
-
-                # valid unique rows are a PREFIX of the bucket (default
-                # layout: [trash, uniq..., trash-pad] — position 0's delta
-                # is the masked-lane gradient, exactly zero; sorted layout:
-                # [uniq..., trash-pad]); rows past the prefix are skipped
-                nv = jnp.sum(uniq_counts.astype(jnp.int32)) + (
-                    0 if cfg.sorted_wire else 1
-                )
-                cache = scatter_add_rows(
-                    cache, uniq_slots, delta_rows, nv,
-                    interpret=cfg.pallas_interpret,
-                )
-            else:
-                cache = cache.at[uniq_slots].add(
-                    delta_rows, indices_are_sorted=cfg.sorted_wire
-                )
+            cache = cache.at[uniq_slots].add(
+                delta_rows, indices_are_sorted=cfg.sorted_wire
+            )
             if cfg.track_touched:
                 touched = touched.at[uniq_slots].set(
                     True, indices_are_sorted=cfg.sorted_wire
@@ -843,7 +765,7 @@ def make_cached_train_step(
                       targets, lr, lr_embeds):
         """One scan-block step of the block-coalesced update (StepConfig
         docstring): reads w_eff = cache - lr * pending, routes per-lookup
-        gradients into the sub-cliff pending buffer with ONE duplicate-row
+        gradients into the small pending buffer with ONE duplicate-row
         scatter, and leaves the cache untouched except aux staging — the
         block-union flush happens once, after the scan."""
         params = jax.tree_util.tree_map(lambda v: v[0], params)
@@ -854,19 +776,10 @@ def make_cached_train_step(
         d = cache.shape[-1]
         p_trash = pend.shape[0] - 1  # host contract: last pending row
 
-        if cfg.use_pallas_scatter and _pallas_blk_ok(aux_slots.shape[0]):
-            from cdlrm_tpu.ops.scatter import scatter_set_rows
-
-            nv_aux = jnp.sum((aux_slots != geo.trash_row).astype(jnp.int32))
-            cache = scatter_set_rows(
-                cache, aux_slots, aux_rows.astype(jnp.float32), nv_aux,
-                interpret=cfg.pallas_interpret,
-            )
-        else:
-            cache = cache.at[aux_slots].set(
-                aux_rows.astype(jnp.float32),
-                indices_are_sorted=cfg.sorted_wire,
-            )
+        cache = cache.at[aux_slots].set(
+            aux_rows.astype(jnp.float32),
+            indices_are_sorted=cfg.sorted_wire,
+        )
         uniq_slots, ginv = _decode_dedup_raw(
             inv_wire, uniq_wire, uniq_counts, cfg.sorted_wire
         )
@@ -925,7 +838,7 @@ def make_cached_train_step(
 
         def scanned_coalesce(params, cache, touched, *rest):
             lr, lr_embeds = rest[-2], rest[-1]
-            blk_slots, blk_counts = rest[-4], rest[-3]
+            blk_slots = rest[-4]  # rest[-3] = blk_counts (host-side only)
             flat = rest[:-4]
             stacked = tuple(
                 jnp.stack([flat[j * n_in + i] for j in range(block)])
@@ -949,24 +862,12 @@ def make_cached_train_step(
             # keeps even the pending trash row clean), so after the -lr
             # scale they add -0.0 — the float identity — and are SPREAD
             # across distinct rows instead of forming one trash-row
-            # same-index chain (PERF.md finding 9).
-            if cfg.use_pallas_scatter and _pallas_blk_ok(p_local):
-                from cdlrm_tpu.ops.scatter import scatter_add_rows
-
-                # valid union rows are a sorted DISTINCT prefix; the kernel
-                # skips everything past blk_counts entirely
-                cache = scatter_add_rows(
-                    cache, blk_slots, -lr_embeds * pend, blk_counts[0],
-                    interpret=cfg.pallas_interpret,
-                )
-            else:
-                spread = (
-                    jnp.arange(p_local, dtype=jnp.int32) % cache.shape[0]
-                )
-                slots_eff = jnp.where(
-                    blk_slots == geo.trash_row, spread, blk_slots
-                )
-                cache = cache.at[slots_eff].add(-lr_embeds * pend)
+            # same-index chain.
+            spread = jnp.arange(p_local, dtype=jnp.int32) % cache.shape[0]
+            slots_eff = jnp.where(
+                blk_slots == geo.trash_row, spread, blk_slots
+            )
+            cache = cache.at[slots_eff].add(-lr_embeds * pend)
             return params, cache, touched, loss, corr
 
         shardmapped = jax.shard_map(
@@ -1011,8 +912,7 @@ def make_cached_train_step(
             # dense_acc?, embed_acc?, lr, lr_embeds). Stacking happens
             # INSIDE the compiled program, so staging stays one (pipelined)
             # put per batch and dispatch cost is paid once per BLOCK: on
-            # thin dispatch links (tunneled TPU, busy hosts) the per-step
-            # overhead divides by the block size.
+            # busy hosts the per-step overhead divides by the block size.
             lr, lr_embeds = rest[-2], rest[-1]
             n_state = 2 if adagrad else 0
             extra = (rest[-3 - n_state],) if hot else ()  # per-window hot
@@ -1130,22 +1030,8 @@ def make_cached_eval_step(
             )
         t_count = slots.shape[0]
         d = cache.shape[-1]
-        if cfg.use_pallas_scatter and _pallas_blk_ok(aux_slots.shape[0]):
-            from cdlrm_tpu.ops.scatter import scatter_set_rows
-
-            nv_aux = jnp.sum((aux_slots != geo.trash_row).astype(jnp.int32))
-            cache = scatter_set_rows(
-                cache, aux_slots, aux_rows.astype(jnp.float32), nv_aux,
-                interpret=cfg.pallas_interpret,
-            )
-        else:
-            cache = cache.at[aux_slots].set(aux_rows.astype(jnp.float32))
-        if cfg.use_pallas_lookup:
-            from cdlrm_tpu.ops.lookup import gather_rows
-
-            rows = gather_rows(cache, slots.reshape(-1))
-        else:
-            rows = jnp.take(cache, slots.reshape(-1), axis=0)
+        cache = cache.at[aux_slots].set(aux_rows.astype(jnp.float32))
+        rows = jnp.take(cache, slots.reshape(-1), axis=0)
         if pooled_width > 0:
             r = rows.reshape(t_count, b_loc, pooled_width, d)
             ly = jnp.sum(r * ls_mask[..., None].astype(r.dtype), axis=2)
@@ -1171,9 +1057,7 @@ def make_cached_eval_step(
     return jax.jit(shardmapped, donate_argnums=(1,))
 
 
-def make_refill_step(
-    mesh: Mesh, cfg: StepConfig, trash_row: Optional[int] = None,
-) -> Callable:
+def make_refill_step(mesh: Mesh, cfg: StepConfig) -> Callable:
     """Jitted refill: gather evicted rows (pre-insert values), scatter insert
     rows, then broadcast replica 0's cache to all replicas (the reference's
     rank-0 CacheEmbeddings + whole-cache NCCL broadcast,
@@ -1222,23 +1106,7 @@ def make_refill_step(
                 )
         if cfg.wire_rows_bf16:
             evicted = evicted.astype(jnp.bfloat16)  # halve the D2H writeback
-        if (cfg.use_pallas_scatter and trash_row is not None
-                and _pallas_blk_ok(insert_slots.shape[0])):
-            from cdlrm_tpu.ops.scatter import scatter_set_rows
-
-            # inserts never target the trash row, so the bucket's valid
-            # prefix is countable on-device (padding = trash_row)
-            nv_ins = jnp.sum(
-                (insert_slots != trash_row).astype(jnp.int32)
-            )
-            cache = scatter_set_rows(
-                cache, insert_slots, insert_rows.astype(jnp.float32),
-                nv_ins, interpret=cfg.pallas_interpret,
-            )
-        else:
-            cache = cache.at[insert_slots].set(
-                insert_rows.astype(jnp.float32)
-            )
+        cache = cache.at[insert_slots].set(insert_rows.astype(jnp.float32))
         if master_state:
             # the inserted id's accumulator RESUMES from the host store
             # (gathered alongside the row values) instead of restarting
@@ -1342,20 +1210,7 @@ def make_aggregate_step(
             (idx,) = jnp.nonzero(union, size=k, fill_value=trash_row)
             rows = jnp.take(cache, idx, axis=0, indices_are_sorted=True)
             agg_rows = combine(rows)
-            if cfg.use_pallas_scatter and _pallas_blk_ok(idx.shape[0]):
-                # distinct valid prefix = the union count (on-device, free);
-                # padded tail entries are skipped entirely
-                from cdlrm_tpu.ops.scatter import scatter_set_rows
-
-                cache = scatter_set_rows(
-                    cache, idx.astype(jnp.int32), agg_rows,
-                    jnp.sum(union.astype(jnp.int32)),
-                    interpret=cfg.pallas_interpret,
-                )
-            else:
-                cache = cache.at[idx].set(
-                    agg_rows, indices_are_sorted=True
-                )
+            cache = cache.at[idx].set(agg_rows, indices_are_sorted=True)
             if adagrad:
                 # the row-wise state syncs with its rows (same combine op)
                 # so the per-row update scale stays replica-consistent

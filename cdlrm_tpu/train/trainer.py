@@ -224,6 +224,11 @@ class _WindowStager(threading.Thread):
             pass
 
 
+# close(): the longest wait for pipeline threads to finish their current
+# window and for queued writebacks to land
+_CLOSE_JOIN_S = 120.0
+
+
 class CachedDlrmTrainer:
     """End-to-end cached-DLRM trainer over a 1-D dp mesh."""
 
@@ -425,22 +430,12 @@ class CachedDlrmTrainer:
         self._wire_pack = bool(
             cfg.pack_wire and self._wire_bits <= step_lib.WIRE_MAX_BITS
         )
-        # Pallas gather needs TPU + lane-aligned dim + block-divisible
-        # lookup count (ops/lookup.py layout contract)
-        def _blk_ok(n):
-            # ops/lookup.py: block = min(1024, n) must divide n, and blocks
-            # must be sublane-aligned — accept n % 1024 == 0, or small n
-            # that is itself a multiple of 256
-            return n % 1024 == 0 or (n < 1024 and n % 256 == 0)
-
-        n_train = len(cfg.ln_emb) * b_loc * max(1, pooled_width)
-        n_eval = len(cfg.ln_emb) * test_b_loc * max(1, pooled_width)
         # dedup wire: rank stream at the width of per-table lookups + the
         # unique list at the slot wire width (both need <= WIRE_MAX_BITS).
         # 'auto' (the default) decides PER WINDOW from the shadow stats
         # pass: dedup wins in proportion to duplication (break-even ~U=0.5N)
-        # and is the guard against the duplicate-heavy scatter cliff
-        # (PERF.md findings 8-9) — _apply_window_stats flips the wire at
+        # and guards against same-index scatter chains on duplicate-heavy
+        # streams — _apply_window_stats flips the wire at
         # window boundaries, where probe format and compiled step always
         # switch together.
         dmode = cfg.dedup_lookups
@@ -458,24 +453,6 @@ class CachedDlrmTrainer:
         self._dedup = dmode == "on" and capable
         n_per_table = b_loc * max(1, pooled_width)
         self._inv_bits = step_lib.wire_width(n_per_table - 1)
-        pallas_base = (
-            cfg.use_pallas_lookup
-            and jax.default_backend() == "tpu"
-            and cfg.m_spa % 128 == 0
-        )
-        pallas_ok = (
-            pallas_base
-            # dedup's [Ub] gather breaks the block contract; auto mode may
-            # switch into dedup at any window boundary, so Pallas needs the
-            # wire pinned plain
-            and dmode == "off"
-            and _blk_ok(n_train)
-            and _blk_ok(n_eval)
-        )
-        # the EVAL wire is always plain regardless of the train dedup mode,
-        # so the forward-only (serving) gather can ride Pallas whenever its
-        # own shape qualifies
-        pallas_eval_ok = pallas_base and _blk_ok(n_eval)
         # single replica: aggregation is the identity (psum over one device),
         # so the agg step AND the per-step touched scatters are skipped
         self._needs_agg = self.ndev > 1
@@ -493,19 +470,6 @@ class CachedDlrmTrainer:
             compute_dtype=cfg.compute_dtype,
             wire_pack=self._wire_pack,
             wire_bits=self._wire_bits,
-            use_pallas_lookup=pallas_ok,
-            # DMA row scatters (ops/scatter.py): on the plain/eval bodies
-            # this covers only the aux staging set (grad scatters there
-            # have duplicate slots); the dedup body also converts the
-            # unique-row scatter-add. Static per-op block-shape fallback
-            # in the step (_pallas_blk_ok).
-            use_pallas_scatter=bool(
-                cfg.use_pallas_scatter
-                and (jax.default_backend() == "tpu"
-                     or cfg.pallas_interpret)
-                and cfg.m_spa % 128 == 0
-            ),
-            pallas_interpret=cfg.pallas_interpret,
             wire_rows_bf16=cfg.wire_rows_bf16,
             track_touched=self._needs_agg,
             dedup=False,
@@ -525,7 +489,7 @@ class CachedDlrmTrainer:
         # mode can switch per window without recompiling earlier variants
         self.step_cfg = scfg
         self.step_cfg_dedup = scfg._replace(
-            dedup=True, use_pallas_lookup=False,
+            dedup=True,
             sorted_wire=bool(cfg.sorted_dedup_wire and not self._wire_pack),
         )
         # scan blocks: one dispatch per `scan_steps` train steps (dispatch
@@ -538,13 +502,9 @@ class CachedDlrmTrainer:
         self._block_coalesce = bool(cfg.block_coalesced_update)
         self._step_cache: dict = {}  # (block size, dedup) -> compiled step
         self.eval_step = step_lib.make_cached_eval_step(
-            self.mesh, self.geo,
-            scfg._replace(use_pallas_lookup=pallas_eval_ok),
-            self.pooled_width,
+            self.mesh, self.geo, scfg, self.pooled_width
         )
-        self.refill_step = step_lib.make_refill_step(
-            self.mesh, scfg, trash_row=self.geo.trash_row
-        )
+        self.refill_step = step_lib.make_refill_step(self.mesh, scfg)
         # sparse union exchange: per-step distinct touched slots <= global
         # lookups per step, so the union since the last aggregation is bounded
         # EXACTLY by freq * B_glob * T * P — no overflow branch needed. Near
@@ -994,14 +954,14 @@ class CachedDlrmTrainer:
                 self._dedup_bucket,
             )
         if self._dedup_auto and stats.total_lookups > 0:
-            # measured break-evens (PERF.md findings 8 + round 3): on the
-            # PACKED wire, coalescing + the ~3.7 ms device decode mean dedup
-            # wins once duplicates reach half the lookups (U <= 0.5 N); on
-            # the UNPACKED wire the decode vanishes and dedup already beat
-            # plain by 16% at the measured U = 0.57 N point — threshold 0.75
-            # keeps a conservative margin toward U ~ N where it's a wash.
-            # Either way it is the guard against the duplicate-heavy scatter
-            # cliff (finding 9). Window boundaries are exactly where wire
+            # break-evens: on the PACKED wire, coalescing pays for the
+            # device wire decode once duplicates reach half the lookups
+            # (U <= 0.5 N); on the UNPACKED wire the decode vanishes, so the
+            # threshold moves to 0.75 N, with a margin toward U ~ N where
+            # it's a wash. These constants were set on another accelerator
+            # and are open until re-measured on this one. Either way it is
+            # the guard against duplicate-heavy same-index scatter chains.
+            # Window boundaries are exactly where wire
             # format + compiled step may switch together (the pipeline
             # probes the next window only after this refill is applied).
             thresh = 0.5 if self._wire_pack else 0.75
@@ -1022,10 +982,9 @@ class CachedDlrmTrainer:
             if npad > 0:
                 # DISTINCT pad rows (descending from trash): pads receive
                 # only the float-identity -0.0 update, and a duplicate-trash
-                # pad block would form a same-index scatter chain — the
-                # XLA:TPU serialization cliff (PERF.md finding 9). The
-                # descending range lands in the aux staging region, so a
-                # miss lane whose aux slot collides with a pad is classified
+                # pad block would form a same-index scatter chain, which
+                # serializes. The descending range lands in the aux staging
+                # region, so a miss lane whose aux slot collides with a pad is classified
                 # hot for that step — still numerically exact (the hot path
                 # accumulates the same gradient the cold path would have
                 # scattered; verified by the hot-tier equivalence tests),
@@ -1065,8 +1024,8 @@ class CachedDlrmTrainer:
         else:
             # single-host per-batch bucket, MONOTONE (running max): a fresh
             # pow2 per batch made every bucket change a new compiled-step
-            # variant — on slow-dispatch links each variant load stalls an
-            # eval batch ~3.5 s (measured); the running max converges after
+            # variant, and each variant compile stalls a batch; the
+            # running max converges after
             # at most log-many growths and stays stable
             key = "eval" if for_eval else "train"
             k = pow2_bucket(max(a.shape[0] for a in aux_slot_shards))
@@ -1102,7 +1061,7 @@ class CachedDlrmTrainer:
         """Train-batch assembly in the dedup wire format (StepConfig.dedup):
         per local replica, probe_dedup emits bit-packed first-seen ranks +
         the unique-slot list; the device segment-sums duplicate gradients
-        and scatters only unique rows (PERF.md finding 4 attack)."""
+        and scatters only unique rows."""
         ls_i = batch.ls_i
         mask = batch.ls_mask
         t_count = ls_i.shape[0]
@@ -1123,9 +1082,9 @@ class CachedDlrmTrainer:
         inv_shards, uniq_lists, count_lists = [], [], []
         aux_slot_shards, aux_row_shards = [], []
         stats = _ProbeStats(t_count)
-        # packed: bit-packed ranks + table-local unique wire (tunnel/thin
+        # packed: bit-packed ranks + table-local unique wire (thin host
         # links); unpacked (pack_wire off): raw int32 ranks + GLOBAL unique
-        # rows — skips the ~3.7 ms device wire decode (PERF.md round 3)
+        # rows — skips the device wire decode
         if self._wire_pack:
             probe = functools.partial(
                 self.controller.probe_dedup, inv_bits=self._inv_bits
@@ -1396,7 +1355,7 @@ class CachedDlrmTrainer:
 
         eval_bucket = None
         if self.multihost:
-            # negotiated per-eval-batch miss bucket (VERDICT r2 item 5): the
+            # negotiated per-eval-batch miss bucket: the
             # eval stream and occupancy metadata are host-identical, so
             # every host computes the same GLOBAL worst-case per-replica
             # miss count locally — zero communication, exact shape, pow2 to
@@ -1623,17 +1582,12 @@ class CachedDlrmTrainer:
         the sorted union falls out of the bitmap scan, and a reusable
         slot->rank map replaces the per-step searchsorted. Identical
         output to the original np.unique+searchsorted form (np.unique's
-        output is sorted ascending, exactly the bitmap-scan order) —
-        measured 128 -> 38 ms per 10-step block at headline geometry on
-        this 1-core host for the numpy form (chipqueue/ab_block_auto2.log).
+        output is sorted ascending, exactly the bitmap-scan order).
         The native kernel (csrc cdlrm_block_union/_ranks, bit-identical,
         pinned in tests/test_native.py) takes the int32 wire dtype
         directly, ANDs a once-built word bitmap of the static real mask
         instead of a byte read per marked slot, and writes rank rows
-        in place into the replica-strided staging array: 7.5 ms/block
-        (0.75 ms/step) at the same geometry (PERF.md round 5 cont.). A
-        production host additionally overlaps this in the assembly
-        pipeline the way the probe already is."""
+        in place into the replica-strided staging array."""
         _, counts0, ub = infos[0]
         t_count = counts0[0].size
         geo = self.geo
@@ -1881,6 +1835,11 @@ class CachedDlrmTrainer:
                         None if ptr is None else [round(float(v), 4) for v in ptr]
                     ),
                     "steps": m.steps,
+                    # cumulative over the run: window refills applied and
+                    # evicted rows written back to the masters so far (the
+                    # writeback thread runs behind the refills)
+                    "refills": m.refills,
+                    "rows_written": int(self.eviction_manager.rows_written),
                     # wire format currently active (auto-dedup decision)
                     "dedup": self._dedup,
                     # multi-host refill prestage hoists completed so far
@@ -2498,13 +2457,29 @@ class CachedDlrmTrainer:
                 self._metrics_fp.close()
                 self._metrics_fp = None
             if self._pipeline_started:
-                if self._pipe is not None:
-                    self._pipe.stop()
-                if self._stager is not None:
-                    self._stager.stop()
-                if self.prefetcher is not None:
-                    self.prefetcher.stop()
+                stoppable = [
+                    t for t in (self._pipe, self._stager, self.prefetcher)
+                    if t is not None
+                ]
+                for t in stoppable:
+                    t.stop()
                 self.eviction_fifo.put(None)
+                # wait for the threads to leave native code: a daemon
+                # thread still inside a native call (OpenMP dedup, master
+                # gather, device put) when the interpreter exits aborts the
+                # process. stop() again while waiting: it re-drains a queue
+                # that a put racing the first drain refilled.
+                deadline = time.monotonic() + _CLOSE_JOIN_S
+                for t in stoppable:
+                    while t.is_alive() and time.monotonic() < deadline:
+                        t.stop()
+                        t.join(timeout=0.1)
+                # the eviction thread applies every queued writeback before
+                # it reaches the sentinel
+                if self.eviction_manager.is_alive():
+                    self.eviction_manager.join(
+                        timeout=max(0.0, deadline - time.monotonic())
+                    )
 
 
 def _pad_batch(batch: Batch, to_size: int) -> Batch:

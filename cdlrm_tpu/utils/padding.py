@@ -14,7 +14,7 @@ def pow2_bucket(n: int, min_size: int = 8, factor: int = 2) -> int:
     """Next power-of-``factor`` bucket >= n. factor=2 bounds padding waste
     at 2x (the padded refill rows are the dominant refill H2D bytes) while
     keeping the number of distinct compiled shapes logarithmic — each new
-    shape is a full XLA compile, expensive on remote/tunneled backends."""
+    shape is a full XLA compile."""
     if n <= min_size:
         return min_size
     b = min_size

@@ -4,7 +4,7 @@ The reference parses --enable-profiling and --plot-compute-graph but never
 uses them (/root/reference/main_no_ddp.py:106-107, SURVEY.md §5); its only
 timing is cuda-synchronized wall clock (time_wrap, main_no_ddp.py:224-226).
 Here:
-- device_time(): block_until_ready-fenced wall clock (the TPU equivalent of
+- device_time(): block_until_ready-fenced wall clock (the JAX equivalent of
   torch.cuda.synchronize + time.time()).
 - profile_trace(): context manager around jax.profiler for real XLA traces
   viewable in TensorBoard/Perfetto — implementing the flag the reference

@@ -274,9 +274,8 @@ void cdlrm_map_probe_batch_wire(const int32_t* map_flat,
 }
 
 // Dedup probe: probe + duplicate-slot coalescing in one pass. The device
-// scatter-add is the measured step floor (~100ns/update, PERF.md finding 4)
-// and Zipf index streams are duplicate-heavy, so shipping each lookup as a
-// RANK into a per-step unique-slot list lets the device segment-sum
+// scatter-add cost grows with its update rows and Zipf index streams are
+// duplicate-heavy, so shipping each lookup as a RANK into a per-step unique-slot list lets the device segment-sum
 // duplicate gradients into a small [U, D] operand and scatter only U rows.
 //
 // Emits, per table:

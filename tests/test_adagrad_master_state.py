@@ -1,8 +1,8 @@
 """Master-resident row-wise AdaGrad state (Config.adagrad_master_state):
 evicted ids' accumulators write back to a host AccumulatorStore with their
-rows, and inserted ids RESUME their state instead of restarting — closing
-the measured thrash gap (PERF.md round 5: with cache-resident-only state,
-AdaGrad's 3%-capacity AUC gap was ~8x SGD's). Beyond parity: the reference
+rows, and inserted ids RESUME their state instead of restarting — targeting
+the thrash gap (with cache-resident-only state, AdaGrad loses several times
+SGD's AUC under cache pressure). Beyond parity: the reference
 trains SGD only (/root/reference/main_no_ddp.py:374-376).
 
 Layers pinned here:
@@ -44,7 +44,7 @@ def test_refill_step_round_trips_state():
         interaction_op="dot", loss_function="bce",
         optimizer="adagrad", adagrad_master_state=True,
     )
-    refill = step_lib.make_refill_step(mesh, scfg, trash_row=R - 1)
+    refill = step_lib.make_refill_step(mesh, scfg)
     lead = NamedSharding(mesh, P("dp"))
     rng = np.random.default_rng(0)
     cache0 = rng.normal(size=(ndev * R, D)).astype(np.float32)

@@ -1,8 +1,8 @@
 """Block-coalesced sparse update (config.block_coalesced_update /
 train/step.py StepConfig.block_coalesce): per-lookup gradients accumulate in
-a sub-cliff pending buffer in block-union row space; the cache pays ONE
+a small pending buffer in block-union row space; the cache pays ONE
 union-row scatter per scan block. SGD-exact up to float reassociation
-(kernel A/B: BLOCK_AB_r04.json; design notes in the StepConfig docstring).
+(design notes in the StepConfig docstring).
 
 These tests pin the trainer-level equivalence against the per-step dedup
 path on the 8-virtual-device CPU mesh, with the full flow live: prefetcher

@@ -230,7 +230,7 @@ def test_slot_map_probe_rejects_out_of_range_ids(masked):
     phantom-hit the wrong table's cache row. Every map path (probe,
     probe_wire, count_misses, count_probe_stats) must raise instead — except
     for MASKED padding lanes, which carry no input contract (the native
-    kernel skips them; round-2 advisor findings 1-2)."""
+    kernel skips them)."""
     ln_emb = (50, 40, 30)
     geo = CacheGeometry.build(ln_emb, 4, 8, 2, 16)
     master = MasterTables(ln_emb, 4, np.random.default_rng(0))

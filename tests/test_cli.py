@@ -195,7 +195,7 @@ def write_learnable_kaggle(path, n=4096, seed=0):
 
 @pytest.mark.slow
 def test_convergence_proxy_mlperf_early_stop(tmp_path, capsys):
-    """Convergence proxy through the REAL CLI (VERDICT r1 item 10): train on
+    """Convergence proxy through the REAL CLI: train on
     a learnable fabricated Kaggle stream until the MLPerf accuracy early
     stop fires (reference stop semantics, main_no_ddp.py:117-118 +
     :479-505), checkpoint at the stop, then resume from the checkpoint in a

@@ -1,5 +1,5 @@
 """Convergence under cache PRESSURE: the offline proxy for the standing
-real-Criteo AUC-parity obligation (BASELINE.md; VERDICT r2 item 2).
+real-Criteo AUC-parity obligation (BASELINE.md).
 
 The paper's core claim is that lookahead caching does not hurt training.
 Round 2 validated it only in the fully-resident regime (where caching does
@@ -150,8 +150,7 @@ def test_convergence_under_cache_pressure():
     assert mid["auc"] >= oracle["auc"] - 0.05
     assert tight["auc"] >= oracle["auc"] - 0.10
     # averaging fresh-trained rows with stale master values at writeback
-    # measurably slows convergence a little further (0.051 AUC gap measured
-    # vs 0.042 for overwrite — PERF.md round 3)
+    # slows convergence a little further than overwrite
     assert mid_avg["auc"] >= oracle["auc"] - 0.07
     assert full["acc"] >= oracle["acc"] - 0.03
     assert mid["acc"] >= oracle["acc"] - 0.06

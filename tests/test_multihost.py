@@ -233,7 +233,7 @@ def test_routed_row_exchange_simulated(rng, H):
     _assemble) are driven directly, with the two process_allgathers replaced
     by stacking — every host must reconstruct exactly the rows a full
     (unsharded) master would return, and the routed payload must be O(cap)
-    rows per host, not O(H*cap) (VERDICT r1 item 7)."""
+    rows per host, not O(H*cap)."""
     from cdlrm_tpu.parallel.multihost import GlobalRowExchange
 
     ln_emb, dim, cap = [97, 215, 31], 8, 48
@@ -482,19 +482,3 @@ def test_four_process_soak_partitions_writebacks(tmp_path):
     single = _run_cluster(1, 4, 0, "soak", tmp_path)[0]
     assert single["losses"] == pytest.approx(quad[0]["losses"], rel=2e-3)
     assert sum(r["rows_written"] for r in quad) == single["rows_written"]
-
-
-@pytest.mark.slow
-def test_two_process_pallas_scatter_matches_single(tmp_path):
-    """use_pallas_scatter (interpret mode) across a real 2-process cluster:
-    the DMA scatter sites (unique-row grad scatter-add, aux staging, refill
-    insert) are per-shard local, so the 2x2 trajectory must match the 1x4
-    single-process run exactly as the XLA-scatter paths do. Guards the
-    nvalid-prefix arithmetic against per-host negotiated bucket shapes."""
-    single = _run_cluster(1, 4, 0, "pscatter", tmp_path)[0]
-    duo = _run_cluster(2, 2, 12419, "pscatter", tmp_path)
-    assert np.allclose(duo[0]["losses"], duo[1]["losses"], rtol=1e-5)
-    assert np.allclose(single["losses"], duo[0]["losses"], rtol=2e-3), (
-        single["losses"], duo[0]["losses"],
-    )
-    assert single["acc"] == pytest.approx(duo[0]["acc"], abs=1e-6)

@@ -1,193 +1,116 @@
-"""Pallas kernel correctness (interpret mode on CPU; the real-TPU perf
-comparison lives in bench_kernels.py)."""
+"""The cached step's plain sparse operations — XLA's gather, scatter-add and
+scatter-set — against numpy at the production row width (D=128), and the
+byte model the kernel benchmark divides their times by (bench_kernels.py;
+the card's times come from ``python chip_smoke.py``)."""
 
-import numpy as np
+import os
+import sys
+
 import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
-from cdlrm_tpu.ops.lookup import gather_rows
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import bench_kernels  # noqa: E402
 
-
-def test_gather_rows_matches_take(rng):
-    cache = jnp.asarray(rng.normal(size=(1000, 128)).astype(np.float32))
-    slots = jnp.asarray(rng.integers(0, 1000, 2048).astype(np.int32))
-    out = np.asarray(gather_rows(cache, slots, True))
-    np.testing.assert_allclose(out, np.asarray(cache)[np.asarray(slots)])
+R, D = 4096, 128
 
 
-def test_gather_rows_vjp_scatter_add(rng):
-    cache = jnp.asarray(rng.normal(size=(256, 128)).astype(np.float32))
-    slots_np = rng.integers(0, 256, 1024).astype(np.int32)
-    slots = jnp.asarray(slots_np)
-
-    def loss(c):
-        return jnp.sum(gather_rows(c, slots, True) ** 2)
-
-    g = np.asarray(jax.grad(loss)(cache))
-    expected = np.zeros((256, 128), np.float32)
-    np.add.at(expected, slots_np, 2 * np.asarray(cache)[slots_np])
-    np.testing.assert_allclose(g, expected, rtol=1e-5)
+def _slots(rng, n, distinct):
+    if distinct:
+        return rng.choice(R - 1, n, replace=False).astype(np.int32)
+    return rng.integers(0, 64, n).astype(np.int32)  # heavy duplication
 
 
-def test_gather_rows_rejects_ragged(rng):
-    cache = jnp.asarray(rng.normal(size=(64, 128)).astype(np.float32))
-    slots = jnp.asarray(rng.integers(0, 64, 1500).astype(np.int32))
-    try:
-        gather_rows(cache, slots, True)
-        raised = False
-    except ValueError:
-        raised = True
-    assert raised
+@pytest.mark.parametrize("distinct", [True, False])
+def test_gather_matches_numpy(rng, distinct):
+    cache = rng.standard_normal((R, D), dtype=np.float32)
+    slots = _slots(rng, 2048, distinct)
+    out = jax.jit(lambda c, s: jnp.take(c, s, axis=0))(cache, slots)
+    np.testing.assert_array_equal(np.asarray(out), cache[slots])
 
 
-# ---- scatter kernels (ops/scatter.py) ----
-
-from cdlrm_tpu.ops.scatter import scatter_add_rows, scatter_set_rows
-
-
-def test_scatter_add_rows_matches_xla(rng):
-    """Distinct-slot RMW scatter-add == .at[].add, with a trash-padded tail
-    beyond nvalid that must be left untouched."""
-    R, D, U, NV = 2100, 128, 2048, 1500
-    cache0 = rng.normal(size=(R, D)).astype(np.float32)
-    slots_np = np.full(U, R - 1, np.int32)  # trash padding
-    slots_np[:NV] = rng.permutation(R - 1)[:NV].astype(np.int32)
-    delta_np = rng.normal(size=(U, D)).astype(np.float32)
-    out = np.asarray(scatter_add_rows(
-        jnp.asarray(cache0), jnp.asarray(slots_np), jnp.asarray(delta_np),
-        NV, interpret=True,
-    ))
-    exp = cache0.copy()
-    exp[slots_np[:NV]] += delta_np[:NV]
-    np.testing.assert_allclose(out, exp, rtol=1e-6)
+def test_distinct_scatter_add_is_bit_exact(rng):
+    """The dedup wire's contract: distinct destination rows, so every
+    element sees exactly one f32 add — bit-exact against numpy whatever
+    order the device applies the rows in."""
+    cache = rng.standard_normal((R, D), dtype=np.float32)
+    slots = _slots(rng, 1024, True)
+    delta = rng.standard_normal((1024, D), dtype=np.float32)
+    out = np.asarray(jax.jit(lambda c, s, g: c.at[s].add(g))(
+        cache, slots, delta))
+    want = cache.copy()
+    want[slots] += delta
+    np.testing.assert_array_equal(out, want)
 
 
-def test_scatter_add_rows_full_valid(rng):
-    """nvalid omitted == every row applied (all distinct)."""
-    R, D, U = 300, 128, 256
-    cache0 = rng.normal(size=(R, D)).astype(np.float32)
-    slots_np = rng.permutation(R)[:U].astype(np.int32)
-    delta_np = rng.normal(size=(U, D)).astype(np.float32)
-    out = np.asarray(scatter_add_rows(
-        jnp.asarray(cache0), jnp.asarray(slots_np), jnp.asarray(delta_np),
-        interpret=True,
-    ))
-    exp = cache0.copy()
-    exp[slots_np] += delta_np
-    np.testing.assert_allclose(out, exp, rtol=1e-6)
+def test_duplicate_scatter_add_matches_add_at(rng):
+    """Duplicate slots (the plain wire) accumulate every update; the
+    summation order is unspecified (atomics on a GPU), so f32 tolerance."""
+    cache = rng.standard_normal((R, D), dtype=np.float32)
+    slots = _slots(rng, 2048, False)
+    delta = rng.standard_normal((2048, D), dtype=np.float32)
+    out = np.asarray(jax.jit(lambda c, s, g: c.at[s].add(g))(
+        cache, slots, delta))
+    want = cache.astype(np.float64)
+    np.add.at(want, slots, delta.astype(np.float64))
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-4)
 
 
-def test_scatter_add_rows_multiblock(rng):
-    """U > _BLOCK_ROWS exercises the grid loop + cross-block write drain."""
-    R, D, U, NV = 5000, 128, 4096, 3333
-    cache0 = rng.normal(size=(R, D)).astype(np.float32)
-    slots_np = np.full(U, R - 1, np.int32)
-    slots_np[:NV] = rng.permutation(R - 1)[:NV].astype(np.int32)
-    delta_np = rng.normal(size=(U, D)).astype(np.float32)
-    out = np.asarray(scatter_add_rows(
-        jnp.asarray(cache0), jnp.asarray(slots_np), jnp.asarray(delta_np),
-        NV, interpret=True,
-    ))
-    exp = cache0.copy()
-    exp[slots_np[:NV]] += delta_np[:NV]
-    np.testing.assert_allclose(out, exp, rtol=1e-6)
+@pytest.mark.parametrize("pad", [0, 256])
+def test_insert_set_matches_numpy(rng, pad):
+    """Refill insert / aux staging: distinct rows set, with the bucket's
+    padding aimed at the trash row (last row, unspecified by contract)."""
+    cache = rng.standard_normal((R, D), dtype=np.float32)
+    slots = np.concatenate([
+        _slots(rng, 512, True), np.full(pad, R - 1, np.int32)])
+    rows = rng.standard_normal((slots.size, D), dtype=np.float32)
+    out = np.asarray(jax.jit(lambda c, s, v: c.at[s].set(v))(
+        cache, slots, rows))
+    want = cache.copy()
+    want[slots[:512]] = rows[:512]
+    np.testing.assert_array_equal(out[:-1], want[:-1])
 
 
-def test_scatter_set_rows_matches_xla(rng):
-    R, D, U, NV = 900, 128, 1024, 777
-    cache0 = rng.normal(size=(R, D)).astype(np.float32)
-    slots_np = np.full(U, R - 1, np.int32)
-    slots_np[:NV] = rng.permutation(R - 1)[:NV].astype(np.int32)
-    rows_np = rng.normal(size=(U, D)).astype(np.float32)
-    out = np.asarray(scatter_set_rows(
-        jnp.asarray(cache0), jnp.asarray(slots_np), jnp.asarray(rows_np),
-        NV, interpret=True,
-    ))
-    exp = cache0.copy()
-    exp[slots_np[:NV]] = rows_np[:NV]
-    np.testing.assert_allclose(out, exp, rtol=1e-6)
+def test_gather_vjp_is_duplicate_scatter_add(rng):
+    """The sparse gradient of the lookup: take's transpose sums the
+    per-lookup gradients of repeated rows (np.add.at)."""
+    cache = rng.standard_normal((256, D), dtype=np.float32)
+    slots = rng.integers(0, 256, 1024).astype(np.int32)
+    g = np.asarray(jax.grad(
+        lambda c: jnp.sum(jnp.take(c, slots, axis=0) ** 2))(cache))
+    want = np.zeros((256, D), np.float64)
+    np.add.at(want, slots, 2.0 * cache[slots].astype(np.float64))
+    np.testing.assert_allclose(g, want, rtol=1e-5, atol=1e-5)
 
 
-def test_scatter_add_rows_chunked_matches_single_call(rng):
-    """U > max_call_rows splits into a chain of aliased calls (the SMEM
-    scalar-prefetch budget fix — the round-4 refill-insert AOT failure at
-    2M slots): results must be identical to the unchunked kernel, with
-    nvalid distributed as a clamped prefix across chunks (including chunks
-    entirely past the valid prefix, which must issue zero writes)."""
-    R, D, U = 9000, 128, 8192
-    cache0 = rng.normal(size=(R, D)).astype(np.float32)
-    delta_np = rng.normal(size=(U, D)).astype(np.float32)
-    for nv in (U, 5000, 1500, 0):  # spans 4, 3, 1, 0 valid chunks at c=2048
-        slots_np = np.full(U, R - 1, np.int32)
-        slots_np[:nv] = rng.permutation(R - 1)[:nv].astype(np.int32)
-        out = np.asarray(scatter_add_rows(
-            jnp.asarray(cache0), jnp.asarray(slots_np),
-            jnp.asarray(delta_np), nv, interpret=True, max_call_rows=2048,
-        ))
-        exp = cache0.copy()
-        exp[slots_np[:nv]] += delta_np[:nv]
-        np.testing.assert_allclose(out, exp, rtol=1e-6)
+@pytest.mark.parametrize("kind,n,mbytes", [
+    ("gather", 26 * 4096, 109.05),  # 106,496 rows read + written
+    ("scatter_add", 65_536, 100.66),  # delta + rows read, rows written
+    ("set", 65_536, 67.11),
+])
+def test_sparse_byte_model(kind, n, mbytes):
+    assert bench_kernels.sparse_bytes(kind, n, 128) / 1e6 == pytest.approx(
+        mbytes, abs=0.01)
 
 
-def test_scatter_set_rows_chunked_matches_single_call(rng):
-    R, D, U, NV = 9000, 128, 8192, 3333
-    cache0 = rng.normal(size=(R, D)).astype(np.float32)
-    slots_np = np.full(U, R - 1, np.int32)
-    slots_np[:NV] = rng.permutation(R - 1)[:NV].astype(np.int32)
-    rows_np = rng.normal(size=(U, D)).astype(np.float32)
-    out = np.asarray(scatter_set_rows(
-        jnp.asarray(cache0), jnp.asarray(slots_np), jnp.asarray(rows_np),
-        NV, interpret=True, max_call_rows=2048,
-    ))
-    exp = cache0.copy()
-    exp[slots_np[:NV]] = rows_np[:NV]
-    np.testing.assert_allclose(out, exp, rtol=1e-6)
+def test_sparse_kernel_rows_smoke():
+    """bench_kernels' sparse rows at the smoke shapes: each is checked
+    against numpy inside and carries a time and a rate; no roofline share
+    without a device peak."""
+    recs = bench_kernels.time_sparse_kernels(smoke=True)
+    names = [r["kernel"].split("/")[0] for r in recs]
+    assert names == ["lookup_gather", "uniq_scatter_add", "insert_set"]
+    for r in recs:
+        assert r["us"] > 0 and r["gbps"] > 0
+        assert "roofline_frac" not in r
 
 
-def test_scatter_chunk_sizes():
-    """_chunks picks the largest blk-multiple divisor <= the cap."""
-    from cdlrm_tpu.ops.scatter import _chunks
-
-    assert _chunks(65536, 1024, 65536) == 65536      # fits: one call
-    assert _chunks(2 * 1024 * 1024, 1024, 65536) == 65536   # pow2: cap
-    assert _chunks(98304, 1024, 65536) == 49152      # 3*32k: largest divisor
-    assert _chunks(3 * 1024, 1024, 2048) == 1024     # odd multiple: blk
-    assert _chunks(512, 512, 65536) == 512           # sub-block: one call
-
-
-def test_scatter_rejects_bad_shapes(rng):
-    cache = jnp.asarray(rng.normal(size=(64, 128)).astype(np.float32))
-    import pytest
-    with pytest.raises(ValueError):
-        scatter_add_rows(cache, jnp.zeros(1500, jnp.int32),
-                         jnp.zeros((1500, 128), jnp.float32), interpret=True)
-    with pytest.raises(ValueError):
-        scatter_add_rows(cache, jnp.zeros(8, jnp.int32),
-                         jnp.zeros((16, 128), jnp.float32), interpret=True)
-
-
-def test_scatter_add_rows_under_shard_map(rng):
-    """The step calls the kernel inside shard_map (per-shard cache block);
-    pin that composition in interpret mode."""
-    from jax.sharding import PartitionSpec as P
-    from cdlrm_tpu.parallel.mesh import DP_AXIS, make_dp_mesh
-
-    ndev, R, D, U = 2, 200, 128, 64
-    mesh = make_dp_mesh(ndev)
-    cache0 = rng.normal(size=(ndev * R, D)).astype(np.float32)
-    slots_np = np.stack(
-        [rng.permutation(R)[:U].astype(np.int32) for _ in range(ndev)])
-    delta_np = rng.normal(size=(ndev, U, D)).astype(np.float32)
-
-    def body(c, s, g):
-        return scatter_add_rows(c, s[0], g[0], interpret=True)
-
-    out = jax.jit(jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(P(DP_AXIS), P(DP_AXIS), P(DP_AXIS)),
-        out_specs=P(DP_AXIS), check_vma=False,
-    ))(jnp.asarray(cache0), jnp.asarray(slots_np), jnp.asarray(delta_np))
-    exp = cache0.copy()
-    for k in range(ndev):
-        exp[k * R + slots_np[k]] += delta_np[k]
-    np.testing.assert_allclose(np.asarray(out), exp, rtol=1e-6)
+def test_sparse_kernel_rows_roofline_share():
+    recs = bench_kernels.time_sparse_kernels(smoke=True, peak_gbps=1000.0)
+    for r in recs:
+        # least time at the peak rate, and the share of it achieved
+        assert r["roofline_us"] == pytest.approx(r["bytes"] / 1e6, abs=0.01)
+        assert r["roofline_frac"] == pytest.approx(
+            r["roofline_us"] / r["us"], abs=1e-3)

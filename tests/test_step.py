@@ -249,7 +249,7 @@ def test_aggregate_ops(op, bucket):
 @pytest.mark.parametrize("op", ["sum", "mean", "max"])
 def test_aggregate_sparse_equals_dense(op):
     """The padded union-slot exchange must be bit-equivalent to the dense
-    masked allreduce it replaces (VERDICT r1 item 1) on random touched masks,
+    masked allreduce it replaces on random touched masks,
     including rows touched by no/one/all replicas and an exactly-full
     bucket."""
     ndev = 4

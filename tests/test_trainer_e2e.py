@@ -197,7 +197,7 @@ def test_full_master_checkpoint_mode(tmp_path):
 def test_midstream_resume_equals_uninterrupted(tmp_path, scan, hot, opt):
     """(train 18, checkpoint, fresh trainer, resume 20 more) must be
     step-for-step identical to an uninterrupted train-38 — including refill
-    windows and prefetcher alignment (VERDICT r1 item 4; the data cursor).
+    windows and prefetcher alignment (the data cursor).
     18 is deliberately mid-window (lookahead 4). Fully-resident geometry
     keeps the comparison exact: no miss-row staging races with eviction
     writebacks. scan=3: resume lands mid-block, cadences and window buckets
@@ -903,7 +903,7 @@ class SkewSwitchDataset:
 
 def test_auto_dedup_follows_window_duplication():
     """dedup_lookups='auto' (the default) must enable the dedup wire for
-    duplicate-heavy windows (the PERF.md finding-9 scatter-cliff guard) and
+    duplicate-heavy windows (the same-index scatter-chain guard) and
     disable it for near-unique windows — decided per window from the shadow
     stats, with the trajectory matching the pinned-wire runs (the two wire
     formats are numerically equivalent, test_dedup_matches_plain_path)."""
@@ -954,7 +954,7 @@ def test_auto_dedup_follows_window_duplication():
     (False, "auto", 4),
 ])
 def test_hot_tier_matches_baseline(pooled, dedup, scan):
-    """hot_tier_rows > 0 splits the sparse update into an MXU-coalesced
+    """hot_tier_rows > 0 splits the sparse update into a segment-summed
     H-row hot scatter + an exactly-bucketed cold scatter. Semantics are the
     same gradient sums in a different float order — the trajectory must
     match the baseline update allclose across wire formats, pooling, and
@@ -1233,67 +1233,6 @@ def test_adagrad_config_guards():
     raw(optimizer="adagrad", use_cache=False).finalize(ln_emb=ln)
 
 
-@pytest.mark.parametrize("opt,srt", [
-    ("sgd", False), ("adagrad", False),
-    ("sgd", True), ("adagrad", True),  # sorted unpacked wire: the
-    # no-reserved-head layout flips the nv arithmetic (sum vs 1+sum)
-])
-def test_pallas_scatter_step_integration_matches_xla(opt, srt):
-    """use_pallas_scatter's five step-integration branches (dedup unique-row
-    scatter-add with its nvalid prefix arithmetic, aux staging set, refill
-    insert set, aggregate union set, and the adagrad state ride-along) run
-    in interpret mode on the CPU mesh (Config.pallas_interpret) and must
-    reproduce the XLA-scatter run exactly — the on-chip A/B then only
-    settles PERF, not correctness. D=128 satisfies the kernels' lane
-    contract."""
-    ln_emb = np.array([50, 20, 70])
-
-    def run(pallas):
-        cfg = make_cfg(
-            arch_sparse_feature_size=128, arch_mlp_bot="13-32-128",
-            arch_mlp_top="64-1", mini_batch_size=32, world_size=2,
-            cache_size=32, num_ways=4, lookahead=3, table_agg_freq=4,
-            dedup_lookups="on", eviction_fifo_size=64, optimizer=opt,
-            use_pallas_scatter=pallas, pallas_interpret=pallas,
-            sorted_dedup_wire=srt, pack_wire=not srt,
-        )
-        cfg.finalize(ln_emb=ln_emb)
-        ds = LearnableDataset(ln_emb, num_batches=18, batch=32, seed=6)
-        tr = CachedDlrmTrainer(cfg, ds)
-        assert tr.step_cfg_dedup.use_pallas_scatter is pallas
-        tr.eviction_manager.start = lambda: None  # freeze master (docstring
-        # of test_dedup_matches_plain_path: writeback landing time is
-        # timing-dependent BY DESIGN; freezing keeps the comparison exact)
-        tr.train(max_steps=14, log_fn=lambda s: None)
-        out = (
-            np.asarray(tr.cache).copy(),
-            {k: [(np.asarray(w), np.asarray(b)) for w, b in v]
-             for k, v in tr.params.items()},
-            np.asarray(tr.embed_acc).copy() if opt == "adagrad" else None,
-            tr.metrics.hits, tr.metrics.lookups,
-        )
-        tr.close()
-        return out
-
-    cache_x, params_x, acc_x, hits_x, lk_x = run(False)
-    cache_p, params_p, acc_p, hits_p, lk_p = run(True)
-    assert (hits_x, lk_x) == (hits_p, lk_p)
-    # trash rows (last row of each replica block) are out of contract
-    R = cache_x.shape[0] // 2
-    keep = np.ones(cache_x.shape[0], bool)
-    for r in range(2):
-        keep[r * R + R - 1] = False
-    np.testing.assert_allclose(cache_p[keep], cache_x[keep],
-                               rtol=1e-5, atol=1e-7)
-    if opt == "adagrad":
-        np.testing.assert_allclose(acc_p[keep], acc_x[keep],
-                                   rtol=1e-5, atol=1e-7)
-    for k in ("bot", "top"):
-        for (w, b), (wo, bo) in zip(params_p[k], params_x[k]):
-            np.testing.assert_allclose(w, wo, rtol=1e-5, atol=1e-7)
-            np.testing.assert_allclose(b, bo, rtol=1e-5, atol=1e-7)
-
-
 def test_inference_only_loads_adagrad_checkpoint(tmp_path):
     """Serving (--inference-only) never reads optimizer state, so an
     adagrad-trained checkpoint must load under the default SGD config when
@@ -1441,8 +1380,8 @@ def test_refill_prestage_matches_unstaged():
 
 
 def test_adagrad_hot_lr_warns():
-    """AdaGrad at SGD-scale lrs measured as sigmoid saturation (AUC 0.5,
-    PERF.md round-4 pressure studies) — finalize warns; AdaGrad-scale lrs
+    """AdaGrad at SGD-scale lrs measured as sigmoid saturation (AUC 0.5 on
+    a mid-scale synthetic task) — finalize warns; AdaGrad-scale lrs
     stay silent."""
     import warnings
 
@@ -1453,3 +1392,22 @@ def test_adagrad_hot_lr_warns():
         warnings.simplefilter("error")
         make_cfg(optimizer="adagrad", learning_rate=0.01, lr_embeds=0.05,
                  dedup_lookups="on")
+
+
+@pytest.mark.parametrize("prestage", [True, False])
+def test_close_mid_stream_joins_pipeline_threads(prestage):
+    """close() after a partial run — the prefetcher still ahead of the
+    trainer — must leave no pipeline thread alive: a daemon thread caught
+    inside native code at interpreter exit aborts the process. Queued
+    writebacks land before close() returns."""
+    ln = np.array([500, 200, 1000])
+    cfg = make_cfg(world_size=2, lookahead=2, batch_fifo_size=2,
+                   refill_prestage=prestage)
+    cfg.finalize(ln_emb=ln)
+    tr = CachedDlrmTrainer(cfg, LearnableDataset(ln, num_batches=40))
+    tr.train(max_steps=6, log_fn=lambda s: None)
+    threads = [tr.prefetcher, tr._pipe, tr._stager, tr.eviction_manager]
+    tr.close()
+    alive = [t.name for t in threads if t is not None and t.is_alive()]
+    assert not alive, alive
+    assert tr.eviction_fifo.empty()
